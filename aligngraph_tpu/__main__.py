@@ -14,7 +14,7 @@ from __future__ import annotations
 import sys
 
 USAGE = """\
-aligngraph_tpu: TPU-native reference-guided genome reassembly
+aligngraph_tpu: reference-guided genome reassembly on GPU or CPU
 (AlignGraph-compatible capability surface, in-engine aligners)
 
 usage: python -m aligngraph_tpu --read1 reads_1.fa --read2 reads_2.fa

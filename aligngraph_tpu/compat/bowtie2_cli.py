@@ -47,13 +47,6 @@ def main(argv=None) -> int:
         return 1
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    import jax
-    jax.config.update("jax_platforms",
-                      os.environ.get("JAX_PLATFORMS", "cpu"))
-    _cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", _cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import numpy as np
 
     from aligngraph_tpu.align.read_aligner import ReadAligner

@@ -3,13 +3,12 @@ graph/kmer_layer.py (C18/C19, `updateGenomeWithRead` + `updateKMer`,
 AlignGraph.cpp:1635-1870, 1353-1624).
 
 Same phases and bit-identical results as the host oracle (asserted in
-tests/test_kmer_jit.py), reformulated for XLA/TPU:
+tests/test_kmer_jit.py), reformulated for XLA on an accelerator:
 
   - rows are DENSE + masked (no host `nonzero`): every (record, base)
     cell owns fixed tuple slots, every tuple owns a fixed [CPO x CPM]
-    anchor-combo grid; invalid rows ride the sorts with +inf keys.
-    TPU sorts absorb the padding (~100x the throughput of host lexsort);
-    the only dynamic-size structure (the "small insertion" bridge chains,
+    anchor-combo grid; invalid rows ride the sorts with +inf keys
+    (device sorts absorb the padding); the only dynamic-size structure (the "small insertion" bridge chains,
     AlignGraph.cpp:1705-1752) uses a fixed capacity with an overflow
     flag that falls the chunk back to the host oracle.
   - grouping (phase 3) is ONE multi-operand `lax.sort` on fixed-width

@@ -2,8 +2,9 @@
 
 `extd_contigs1_native(g)` is a drop-in for graph.traverse.extd_contigs1
 (the sequential walk is the hottest host-side loop; C++ is ~1000x the
-Python oracle).  Falls back to None when no toolchain is available —
-callers then use the Python implementation.
+Python oracle).  The libraries are built from the committed sources on
+first use (they are not tracked).  Falls back to None when no toolchain is
+available — callers then use the Python implementation.
 """
 
 from __future__ import annotations
@@ -20,17 +21,26 @@ _LIBS: dict = {}
 
 
 def _build(name: str, src_name: str) -> Optional[str]:
+    """Compile `src_name` into `name` unless an up-to-date build exists.
+
+    The compiler writes a temporary name that is then renamed into place,
+    so processes building at once (test workers) never load a
+    half-written library."""
     so = os.path.join(_HERE, name)
     src = os.path.join(_HERE, src_name)
     if os.path.exists(so) and os.path.getmtime(so) >= \
             os.path.getmtime(src):
         return so
+    tmp = f"{so}.tmp{os.getpid()}"
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", so, src],
+            ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, src],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)
         return so
     except Exception:
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return None
 
 

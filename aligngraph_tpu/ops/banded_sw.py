@@ -2,7 +2,7 @@
 
 This replaces the DP core of bowtie2's local aligner (reference invocation
 AlignGraph.cpp:3601-3609 with --local --mp 3,1 --rdg 2,1 --rfg 2,1
---score-min G,5,2).  Design is TPU-first:
+--score-min G,5,2).  Design:
 
  - band-relative coordinates: read base i may align genome positions
    g0 + i + delta, delta in [-pad, pad); band index b = delta + pad in
@@ -17,8 +17,7 @@ AlignGraph.cpp:3601-3609 with --local --mp 3,1 --rdg 2,1 --rfg 2,1
    E-extend, 1 bit F-extend) and walked back OUTSIDE the DP loop,
    vectorized across the batch (each lane walks its own path in lockstep).
 
-The same function runs on CPU for tests and on TPU; a fused Pallas kernel
-with identical semantics lives in ops/banded_sw_pallas.py.
+The same XLA functions run on the CPU (tests) and on the GPU.
 
 Scoring (bowtie2-local-flavored): match +2, mismatch -3, N -1,
 gap of length n costs open + ext*n (open=2, ext=1).
@@ -46,15 +45,6 @@ class SWResult(NamedTuple):
     best_i: jax.Array   # [B] int32 row (1-based read prefix) of best cell
     best_b: jax.Array   # [B] int32 band index of best cell
     tb: jax.Array       # [L, B, W] uint8 traceback bits
-
-
-def banded_sw_auto(reads, rlens, windows, pad: int) -> "SWResult":
-    """Platform dispatch: the Pallas TPU kernel on TPU backends (bit-for-
-    bit identical, ~100x faster), the XLA implementation elsewhere."""
-    if jax.default_backend() != "cpu" and reads.shape[0] % 128 == 0:
-        from aligngraph_tpu.ops.banded_sw_pallas import banded_sw_pallas
-        return banded_sw_pallas(reads, rlens, windows, pad=pad)
-    return banded_sw(reads, rlens, windows, pad=pad)
 
 
 def gapless_diag(reads, rlens, windows, pad: int):
@@ -92,39 +82,49 @@ def gapless_diag(reads, rlens, windows, pad: int):
     return best, gs, ge
 
 
-def banded_sw_posmap_auto(reads, rlens, windows, g0, pad: int,
-                          smin=None):
-    """DP + traceback -> (score [B], pos_map [B, L]); platform dispatch.
+def gapless_select(score, pm_tb, gb, gs, ge, g0, smin=None):
+    """The gapless fast path's select -> pos_map [B, L].
 
-    Both backends apply the gapless fast path: lanes whose banded score
-    is attained by an ungapped run on the seed diagonal get their
-    pos_map synthesized directly (one iota range); only the rest walk
-    traceback bits.  `smin` [B] (optional) is the caller's acceptance
-    floor — lanes scoring below it are filtered downstream, so their
-    pos_map is the synthesized diagonal run rather than a traceback
-    walk (junk candidates dominate the traceback set otherwise).  On
-    TPU the traceback kernel runs on a COMPACTED lane subset (see
-    banded_sw_pallas.banded_sw_posmap_fast); elsewhere the XLA
-    gather-walk runs on all lanes and the select keeps the semantics
-    identical (cross-backend equality tested)."""
-    if jax.default_backend() != "cpu" and reads.shape[0] % 128 == 0:
-        from aligngraph_tpu.ops.banded_sw_pallas import (
-            banded_sw_posmap_fast,
-        )
-        return banded_sw_posmap_fast(reads, rlens, windows, g0, pad=pad,
-                                     smin=smin)
+    Lanes whose banded score is attained by an ungapped run on the seed
+    diagonal (score == gb) get their pos_map synthesized directly (one
+    iota range over [gs, ge]); only the rest keep the traceback walk
+    `pm_tb`.  `smin` [B] (optional) is the caller's acceptance floor —
+    lanes scoring below it are filtered downstream, so they take the
+    synthesized diagonal run rather than a walk."""
+    need = score > gb
+    if smin is not None:
+        need = need & (score >= smin)
+    j = jnp.arange(pm_tb.shape[1], dtype=jnp.int32)
+    syn_on = (~need[:, None]) & (score > 0)[:, None] \
+        & (j[None, :] >= gs[:, None]) & (j[None, :] <= ge[:, None])
+    pm_syn = jnp.where(syn_on, g0[:, None] + j[None, :], -1)
+    return jnp.where(need[:, None], pm_tb, pm_syn)
+
+
+def banded_sw_posmap_xla(reads, rlens, windows, g0, pad: int, smin=None):
+    """DP + traceback + gapless select in plain XLA -> (score [B],
+    pos_map [B, L])."""
     res = banded_sw(reads, rlens, windows, pad=pad)
     pm_tb = sw_traceback(res.tb, res.best_i, res.best_b, g0, pad=pad)
     gb, gs, ge = gapless_diag(reads, rlens, windows, pad)
-    need = res.score > gb
-    if smin is not None:
-        need = need & (res.score >= smin)
-    j = jnp.arange(reads.shape[1], dtype=jnp.int32)
-    syn_on = (~need[:, None]) & (res.score > 0)[:, None] \
-        & (j[None, :] >= gs[:, None]) & (j[None, :] <= ge[:, None])
-    pm_syn = jnp.where(syn_on, g0[:, None] + j[None, :], -1)
-    pm = jnp.where(need[:, None], pm_tb, pm_syn)
-    return res.score, pm
+    return res.score, gapless_select(res.score, pm_tb, gb, gs, ge, g0, smin)
+
+
+def banded_sw_posmap_auto(reads, rlens, windows, g0, pad: int,
+                          smin=None):
+    """DP + traceback -> (score [B], pos_map [B, L]); backend dispatch.
+
+    "cpu" and "gpu" both run the XLA implementation (on the GPU a fused
+    CUDA kernel was 10x faster per DP batch but did not speed up the
+    pipeline's alignment stage, which is host-bound; see PERF.md).  Any
+    other backend raises rather than running untested code."""
+    backend = jax.default_backend()
+    if backend in ("cpu", "gpu"):
+        return banded_sw_posmap_xla(reads, rlens, windows, g0, pad=pad,
+                                    smin=smin)
+    raise NotImplementedError(
+        f"banded DP: no implementation for backend {backend!r} "
+        f"(supported: cpu, gpu)")
 
 
 def _shift_down(a, s):

@@ -1,4 +1,4 @@
-"""Position-axis sharding with halo exchange — the TPU-native
+"""Position-axis sharding with halo exchange — the device
 generalization of the reference's `--part` genome splitting.
 
 The reference cuts each chromosome into parts with NO overlap: contigs

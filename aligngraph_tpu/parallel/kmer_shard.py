@@ -1,6 +1,6 @@
 """Position-sharded k-mer graph build — D2/D3 completion (SURVEY §2.4).
 
-The TPU-native generalization of the reference's `--part` memory
+The device generalization of the reference's `--part` memory
 sharding (AlignGraph.cpp:3347-3418): instead of sequential per-part
 files, the km_*/ed_* graph tensors live SHARDED over a device mesh's
 position axis and the build's merge traffic rides collectives:

@@ -4,11 +4,11 @@ The reference has no distributed backend (files are the transport;
 2 pthreads share nothing, AlignGraph.cpp:3720-3735).  Our scale-out maps
 the workload onto a mesh with two axes of parallelism:
 
-  dp  — PE read batches data-parallel across chips (the hot DP/alignment
-        work; replaces bowtie2 -p threading)
-  sp  — the genome position axis sharded across chips for the graph-merge
-        tensors (the TPU-native generalization of --part), merged with
-        reduce_scatter/psum collectives over ICI (parallel/halo.py)
+  dp  — PE read batches data-parallel across devices (the hot
+        DP/alignment work; replaces bowtie2 -p threading)
+  sp  — the genome position axis sharded across devices for the
+        graph-merge tensors (the device generalization of --part), merged
+        with reduce_scatter/psum collectives (parallel/halo.py)
 
 `make_sharded_aligner` shards THE production align program
 (read_aligner._align_pairs_packed — the same jitted function the

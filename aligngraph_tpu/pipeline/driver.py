@@ -213,8 +213,8 @@ def run_pipeline(cfg: Config,
             # the reference overlaps read-align and contig-align with a
             # 2-pthread fork (`parallelMap`, AlignGraph.cpp:3720-3735);
             # ours overlaps the two dispatch streams with 2 host threads
-            # (read batches stream through the TPU while contig seeding/
-            # chaining runs on host CPU)
+            # (read batches stream through the device while contig
+            # seeding/chaining runs on host CPU)
             import concurrent.futures as _cf
 
             r_aligner = ReadAligner.build(gseq, cfg)
@@ -225,8 +225,15 @@ def run_pipeline(cfg: Config,
             else:
                 align_c = lambda: _align_contigs_per_part(  # noqa: E731
                     genome, contigs, cfg)
+
+            def align_r():
+                tr = time.time()
+                out = r_aligner.align(reads)
+                stats["read_align_seconds"] = time.time() - tr
+                return out
+
             with _cf.ThreadPoolExecutor(max_workers=2) as ex:
-                fut_r = ex.submit(r_aligner.align, reads)
+                fut_r = ex.submit(align_r)
                 fut_c = ex.submit(align_c)
                 rali = fut_r.result()
                 cali = fut_c.result()
@@ -235,6 +242,7 @@ def run_pipeline(cfg: Config,
             checkpoint.set(0)
     align_seconds = time.time() - ta
     stats["read_alignments"] = rali.n
+    stats["aligned_reads"] = 2 * len(np.unique(rali.pair_id))
     stats["contig_placements"] = cali.n
 
     if cfg.ratio_check:

@@ -8,7 +8,7 @@ allocations onto the (never-trimmed) heap makes freed pages get reused
 warm: steady-state large-array numpy goes from ~7 MB/s to ~7 GB/s.
 
 The reference has no analogous subsystem (it runs on bare metal); this
-is infrastructure the TPU-host environment needs.
+is infrastructure a sandboxed host environment needs.
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """End-to-end pipeline benchmark — BASELINE.json config 1 scale.
 
-Prints ONE JSON line with the full-pipeline wall time, the per-stage split
+Prints ONE JSON line (naming the device; exits non-zero without a GPU
+unless JAX_PLATFORMS=cpu is set explicitly) with the full-pipeline wall
+time, the per-stage split
 (alignment / contig layer / k-mer graph build / traversal+scaffold /
 refinement), the extension product (the pipeline's actual output — the
 bench FAILS if zero contigs are extended), and the Eval-module assembly
@@ -26,12 +28,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
-
-import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 COMP = np.array([3, 2, 1, 0, 4], np.int8)
 
@@ -107,7 +103,10 @@ def main():
     from aligngraph_tpu.io.formalize import (Reads, formalize_contigs,
                                              formalize_genome)
     from aligngraph_tpu.pipeline.driver import run_pipeline
+    from aligngraph_tpu.utils.device import measurement_device
     from aligngraph_tpu.utils.hostmem import warm_heap
+
+    device = measurement_device()
 
     warm_heap(1 << 30)
     rng = np.random.default_rng(7)
@@ -117,7 +116,8 @@ def main():
     reads = Reads(n_pairs, read_len, data, lens)
     contig_seqs = cut_contigs(rng, target)
 
-    d = "/tmp/bench_pipeline"
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     ".bench_pipeline")
     os.makedirs(d, exist_ok=True)
     write_fasta(f"{d}/genome.fa", ["chr"], [decode(ref)])
     write_fasta(f"{d}/target.fa", ["chr"], [decode(target)])
@@ -161,6 +161,7 @@ def main():
         "extended_bases": ext_bases,
         "eval": ev,
         "kmer_stats": res.stats.get("kmer_build"),
+        **device,
     }))
     if n_ext == 0:
         print("FAIL: pipeline produced zero extended contigs",

@@ -2,7 +2,7 @@
 
 Simulates: 4.6 Mb target genome, closely related reference (1% SNPs +
 small indels), 100bp PE reads at 500bp insert, draft contigs (target
-fragments with gaps).  Runs the full pipeline (alignment on the TPU,
+fragments with gaps).  Runs the full pipeline (alignment on the device,
 graph build + traversal on host/native), then evaluates the extended
 contigs against the *target* with the Eval module.
 

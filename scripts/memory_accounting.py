@@ -1,5 +1,4 @@
-"""GraphTensors memory accounting + chr20-scale allocation check
-(VERDICT r03 item 6).
+"""GraphTensors memory accounting + chr20-scale allocation check.
 
 Prints the exact bytes/position of every graph tensor family, allocates a
 human-chr20-scale (100 Mb) part to confirm the footprint against RSS, and

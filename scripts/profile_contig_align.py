@@ -1,7 +1,7 @@
-"""Stage-level profile of the contig aligner on a BENCH_PIPE-shaped
+"""Stage-level profile of the contig aligner on a bench_pipeline-shaped
 workload (scaled by --mb).  Times _seed_hits / cluster+chain / tile DP /
-finalize separately so the 768 s BENCH_PIPE alignment wall can be
-attributed and tracked.
+finalize separately so the pipeline's alignment wall can be attributed
+and tracked.
 
 Usage: python scripts/profile_contig_align.py [genome_mb] [backend]
 """

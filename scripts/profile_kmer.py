@@ -1,5 +1,5 @@
 """Profile the k-mer graph build at scale with synthesized records
-(no aligner, no TPU).
+(no aligner, no accelerator).
 
 Usage: JAX_PLATFORMS=cpu python scripts/profile_kmer.py [n_pairs] [glen]
 """

@@ -23,8 +23,6 @@ if len(sys.argv) > 2:
     os.environ["JAX_PLATFORMS"] = sys.argv[2]
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import numpy as np
 
 

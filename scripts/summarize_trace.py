@@ -1,4 +1,8 @@
-"""Summarize the most recent /tmp/jaxtrace device-op durations."""
+"""Summarize the device-op durations of the most recent JAX trace.
+
+Usage: python scripts/summarize_trace.py TRACE_DIR [TOP_N]
+(TRACE_DIR is the directory given to jax.profiler.trace.)
+"""
 
 import collections
 import glob
@@ -6,7 +10,7 @@ import gzip
 import json
 import sys
 
-root = sys.argv[1] if len(sys.argv) > 1 else "/tmp/jaxtrace"
+root = sys.argv[1]
 paths = sorted(glob.glob(f"{root}/plugins/profile/*/*.trace.json.gz"))
 with gzip.open(paths[-1]) as f:
     tr = json.load(f)
@@ -20,7 +24,8 @@ cnt = collections.Counter()
 for e in ev:
     if e.get("ph") == "X" and "dur" in e:
         pn = str(names.get(e.get("pid"), ""))
-        if "TPU" in pn:
+        # the GPU device planes ("/device:GPU:0 ..."), not host threads
+        if "/device:GPU" in pn:
             dur[e["name"]] += e["dur"]
             cnt[e["name"]] += 1
 tot = sum(dur.values())

@@ -1,7 +1,8 @@
 """Capture a jax.profiler trace of one packed align batch (cached compile).
 
 Usage: python scripts/trace_packed.py [P]
-Writes /tmp/jaxtrace; then summarize with scripts/summarize_trace.py.
+Writes /tmp/jaxtrace; then summarize with
+`python scripts/summarize_trace.py /tmp/jaxtrace`.
 """
 
 import os
@@ -11,8 +12,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import jax.numpy as jnp
 import numpy as np
 

@@ -124,3 +124,51 @@ def write_fasta_seqs(path, seqs, prefix="seq"):
     ids = [f"{prefix}{i}" for i in range(len(seqs))]
     write_fasta(path, ids, [decode(s) for s in seqs])
     return ids
+
+
+def dp_batch(seed: int, B: int, L: int, pad: int = 16,
+             genome_len: int = 200_000, indel_frac: float = 0.3,
+             junk_frac: float = 0.05, zero_every: int = 17) -> dict:
+    """Seeded inputs of the banded DP (ops/banded_sw.py) for B candidates.
+
+    Each lane is a read of length L/2..L drawn at g0 from a random genome
+    with 1% SNPs and a few N bases; `indel_frac` of the lanes carry one
+    1-3 bp insertion or deletion, `junk_frac` are unrelated sequence (they
+    score below the floor), every `zero_every`-th lane has length 0, and
+    the rest are gapless.  windows[:, x] = genome[g0 - pad + x] (4 outside
+    the genome); smin is the read aligner's --score-min floor."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, BASES, genome_len).astype(np.int8)
+    W = 2 * pad
+    g0 = rng.integers(0, genome_len - L - 4, B).astype(np.int32)
+    g0[:: max(1, B // 8)] = 2          # windows that run off the genome
+    seqs = genome[g0[:, None] + np.arange(L + 3)[None, :]]
+    snp = rng.random(seqs.shape) < 0.01
+    seqs[snp] = (seqs[snp] + rng.integers(1, BASES, int(snp.sum()))) % BASES
+    seqs[rng.random(seqs.shape) < 0.001] = 4
+    lens = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    lens[rng.random(B) < 0.5] = L
+    reads = np.full((B, L), 4, np.int8)
+    kind = rng.random(B)
+    for i in range(B):
+        s = seqs[i]
+        if kind[i] < indel_frac:
+            d = int(rng.integers(1, 4))
+            cut = int(rng.integers(5, L - 5))
+            if rng.random() < 0.5:
+                s = np.concatenate([s[:cut], s[cut + d:]])
+            else:
+                s = np.concatenate([s[:cut], rng.integers(
+                    0, BASES, d).astype(np.int8), s[cut:]])
+        elif kind[i] < indel_frac + junk_frac:
+            s = rng.integers(0, BASES, L).astype(np.int8)
+        reads[i, :lens[i]] = s[:lens[i]]
+    lens[::zero_every] = 0
+    reads[::zero_every] = 4
+    x = g0[:, None] - pad + np.arange(L + W)[None, :]
+    windows = np.where((x >= 0) & (x < genome_len),
+                       genome[np.clip(x, 0, genome_len - 1)],
+                       np.int8(4)).astype(np.int8)
+    smin = np.ceil(5.0 + 2.0 * np.log(
+        np.maximum(lens, 2).astype(np.float32))).astype(np.int32)
+    return dict(reads=reads, rlens=lens, windows=windows, g0=g0, smin=smin)

@@ -164,112 +164,127 @@ def test_no_alignment_scores_zero():
     assert int(res.score[0]) == 0
 
 
-def test_posmap_pallas_interpret_equals_xla():
-    """Fused Pallas DP + row-sweep traceback (interpret mode on CPU) must
-    be bit-equal to banded_sw + sw_traceback."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from aligngraph_tpu.ops.banded_sw import banded_sw, sw_traceback
-    from aligngraph_tpu.ops.banded_sw_pallas import banded_sw_posmap_pallas
-
-    rng = np.random.default_rng(21)
-    B, L, pad = 128, 60, 8
-    genome = rng.integers(0, 4, 5000).astype(np.int8)
-    reads = np.full((B, L), 4, np.int8)
-    rlens = np.zeros(B, np.int32)
-    g0 = np.zeros(B, np.int32)
-    for i in range(B):
-        ln = int(rng.integers(30, L + 1))
-        st = int(rng.integers(0, len(genome) - ln - 2 * pad))
-        seq = genome[st:st + ln].copy()
-        # mutations + indels
-        mi = rng.random(ln) < 0.05
-        seq[mi] = (seq[mi] + rng.integers(1, 4, mi.sum())) % 4
-        if rng.random() < 0.3 and ln > 10:
-            cut = int(rng.integers(5, ln - 5))
-            seq = np.concatenate([seq[:cut], seq[cut + 2:]])
-            ln = len(seq)
-        reads[i, :ln] = seq
-        rlens[i] = ln
-        g0[i] = st
-    wl = L + 2 * pad
-    x = g0[:, None] - pad + np.arange(wl)[None, :]
-    windows = np.where((x >= 0) & (x < len(genome)),
-                       genome[np.clip(x, 0, len(genome) - 1)],
-                       np.int8(4)).astype(np.int8)
-    # a few zero-length (invalid) lanes
-    rlens[::17] = 0
-
-    res = banded_sw(jnp.asarray(reads), jnp.asarray(rlens),
-                    jnp.asarray(windows), pad=pad)
-    pm_ref = sw_traceback(res.tb, res.best_i, res.best_b,
-                          jnp.asarray(g0), pad=pad)
-    score_p, pm_p = banded_sw_posmap_pallas(
-        jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(windows),
-        jnp.asarray(g0), pad=pad, interpret=True)
-    np.testing.assert_array_equal(np.asarray(res.score),
-                                  np.asarray(score_p))
-    np.testing.assert_array_equal(np.asarray(pm_ref), np.asarray(pm_p))
+# (B, L): the read path's width (L=100) and the contig tile width (L=512),
+# with small batches for the CPU
+SHAPES = {"read": (256, 100), "contig": (48, 512)}
+PAD = 16
 
 
-def test_posmap_fast_interpret_equals_cpu_auto():
-    """Gapless-fast-path variants must agree: the compacted Pallas
-    traceback (interpret mode) vs the CPU auto path (XLA traceback +
-    gapless select)."""
-    import jax.numpy as jnp
-    import numpy as np
+def _reference_posmap(c, use_smin):
+    """banded_sw + sw_traceback + the gapless select, spelled out."""
+    from aligngraph_tpu.ops.banded_sw import gapless_diag
 
-    from aligngraph_tpu.ops.banded_sw import (
-        banded_sw, gapless_diag, sw_traceback)
-    from aligngraph_tpu.ops.banded_sw_pallas import banded_sw_posmap_fast
+    reads, rlens = jnp.asarray(c["reads"]), jnp.asarray(c["rlens"])
+    windows, g0 = jnp.asarray(c["windows"]), c["g0"]
+    res = banded_sw(reads, rlens, windows, pad=PAD)
+    pm_tb = np.asarray(sw_traceback(res.tb, res.best_i, res.best_b,
+                                    jnp.asarray(g0), pad=PAD))
+    gb, gs, ge = (np.asarray(a) for a in
+                  gapless_diag(reads, rlens, windows, PAD))
+    score = np.asarray(res.score)
+    need = score > gb
+    if use_smin:
+        need &= score >= c["smin"]
+    j = np.arange(reads.shape[1])
+    syn_on = (~need[:, None]) & (score > 0)[:, None] \
+        & (j[None, :] >= gs[:, None]) & (j[None, :] <= ge[:, None])
+    pm = np.where(need[:, None], pm_tb,
+                  np.where(syn_on, g0[:, None] + j[None, :], -1))
+    return score, pm, need
 
-    rng = np.random.default_rng(33)
-    B, L, pad = 256, 60, 8
-    genome = rng.integers(0, 4, 5000).astype(np.int8)
-    reads = np.full((B, L), 4, np.int8)
-    rlens = np.zeros(B, np.int32)
-    g0 = np.zeros(B, np.int32)
-    for i in range(B):
-        ln = int(rng.integers(30, L + 1))
-        st = int(rng.integers(0, len(genome) - ln - 2 * pad))
-        seq = genome[st:st + ln].copy()
-        mi = rng.random(ln) < 0.04
-        seq[mi] = (seq[mi] + rng.integers(1, 4, mi.sum())) % 4
-        if rng.random() < 0.3 and ln > 10:   # ~30% of lanes get an indel
-            cut = int(rng.integers(5, ln - 5))
-            seq = np.concatenate([seq[:cut], seq[cut + 2:]])
-            ln = len(seq)
-        reads[i, :ln] = seq
-        rlens[i] = ln
-        g0[i] = st
-    rlens[::23] = 0
-    wl = L + 2 * pad
-    x = g0[:, None] - pad + np.arange(wl)[None, :]
-    windows = np.where((x >= 0) & (x < len(genome)),
-                       genome[np.clip(x, 0, len(genome) - 1)],
-                       np.int8(4)).astype(np.int8)
 
-    # CPU auto semantics, spelled out
-    res = banded_sw(jnp.asarray(reads), jnp.asarray(rlens),
-                    jnp.asarray(windows), pad=pad)
-    pm_tb = sw_traceback(res.tb, res.best_i, res.best_b,
-                         jnp.asarray(g0), pad=pad)
-    gb, gs, ge = gapless_diag(jnp.asarray(reads), jnp.asarray(rlens),
-                              jnp.asarray(windows), pad)
-    need = np.asarray(res.score > gb)
-    j = np.arange(L)
-    syn_on = (~need[:, None]) & (np.asarray(res.score) > 0)[:, None] \
-        & (j[None, :] >= np.asarray(gs)[:, None]) \
-        & (j[None, :] <= np.asarray(ge)[:, None])
-    pm_ref = np.where(need[:, None], np.asarray(pm_tb),
-                      np.where(syn_on, g0[:, None] + j[None, :], -1))
-    # gapless lanes must score identically through the synthesized map
-    assert need.sum() < B // 2 and (~need).sum() > 0
+def _posmap_args(c, use_smin):
+    return ((jnp.asarray(c["reads"]), jnp.asarray(c["rlens"]),
+             jnp.asarray(c["windows"]), jnp.asarray(c["g0"])),
+            dict(pad=PAD, smin=jnp.asarray(c["smin"]) if use_smin else None))
 
-    score_f, pm_f = banded_sw_posmap_fast(
-        jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(windows),
-        jnp.asarray(g0), pad=pad, interpret=True)
-    np.testing.assert_array_equal(np.asarray(res.score),
-                                  np.asarray(score_f))
-    np.testing.assert_array_equal(pm_ref, np.asarray(pm_f))
+
+@pytest.mark.parametrize("use_smin", [True, False], ids=["smin", "nosmin"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_posmap_auto_cpu_equals_reference(shape, use_smin):
+    """The CPU path of banded_sw_posmap_auto (the reference the GPU kernel
+    is held to) on indel, gapless, junk and zero-length lanes."""
+    from aligngraph_tpu.ops.banded_sw import banded_sw_posmap_auto
+    from simdata import dp_batch
+
+    B, L = SHAPES[shape]
+    c = dp_batch(7, B, L, PAD)
+    score_ref, pm_ref, need = _reference_posmap(c, use_smin)
+    # every lane kind is present: walked, synthesized, unaligned
+    assert need.any() and (~need & (score_ref > 0)).any()
+    assert (c["rlens"] == 0).any()
+    args, kw = _posmap_args(c, use_smin)
+    score, pm = banded_sw_posmap_auto(*args, **kw)
+    np.testing.assert_array_equal(np.asarray(score), score_ref)
+    np.testing.assert_array_equal(np.asarray(pm), pm_ref)
+
+
+def test_auto_on_gpu_backend_runs_xla_path(monkeypatch):
+    """backend "gpu" takes the same XLA path as the CPU."""
+    import jax
+
+    from aligngraph_tpu.ops.banded_sw import banded_sw_posmap_auto
+    from simdata import dp_batch
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    c = dp_batch(5, 40, 100, PAD)
+    args, kw = _posmap_args(c, True)
+    score, pm = banded_sw_posmap_auto(*args, **kw)
+    score_ref, pm_ref, _ = _reference_posmap(c, True)
+    np.testing.assert_array_equal(np.asarray(score), score_ref)
+    np.testing.assert_array_equal(np.asarray(pm), pm_ref)
+
+
+def test_auto_unknown_backend_raises(monkeypatch):
+    import jax
+
+    from aligngraph_tpu.ops.banded_sw import banded_sw_posmap_auto
+    from simdata import dp_batch
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    args, kw = _posmap_args(dp_batch(1, 8, 100, PAD), False)
+    with pytest.raises(NotImplementedError, match="rocm"):
+        banded_sw_posmap_auto(*args, **kw)
+
+
+@pytest.fixture
+def gpu_device():
+    """The first CUDA device; the test skips where there is none."""
+    import jax
+
+    try:
+        return jax.devices("gpu")[0]
+    except RuntimeError:
+        pytest.skip("needs an NVIDIA GPU: run `python chip_smoke.py` "
+                    "on the card")
+
+
+# the production widths: the read path's DP (L = 100, band 32; a read
+# batch has 98,304 lanes, cut here to keep the CPU reference short) and
+# one contig tile batch (DP_BATCH = 2,048 tiles of TILE = 512)
+GPU_SHAPES = {"read": (16_384, 100), "contig": (2_048, 512)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(GPU_SHAPES))
+def test_gpu_dp_equals_cpu_reference(gpu_device, shape):
+    """The DP compiled for the GPU against the reference on the CPU
+    device, bit for bit, at the production widths."""
+    import jax
+
+    from aligngraph_tpu.ops.banded_sw import banded_sw_posmap_xla
+    from simdata import dp_batch
+
+    B, L = GPU_SHAPES[shape]
+    c = dp_batch(11, B, L, PAD)
+    fn = jax.jit(banded_sw_posmap_xla, static_argnames=("pad",))
+    for use_smin in (True, False):
+        args, kw = _posmap_args(c, use_smin)
+        on_gpu = fn(*jax.device_put(args, gpu_device), pad=PAD,
+                    smin=jax.device_put(kw["smin"], gpu_device))
+        cpu = jax.devices("cpu")[0]
+        on_cpu = fn(*jax.device_put(args, cpu), pad=PAD,
+                    smin=jax.device_put(kw["smin"], cpu))
+        for got, want in zip(on_gpu, on_cpu):
+            assert got.devices() == {gpu_device}
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

@@ -7,11 +7,10 @@ aligner with dp shards spanning the process boundary.  The parent
 compares process-0's gathered results against single-process oracles.
 
 The reference has no distributed story at all (SURVEY.md §2.4.5: no
-MPI/NCCL/sockets); BASELINE.json requires N>=2 hosts.  Real 2-host TPU
-hardware is unavailable in this image, so process boundaries on the CPU
-backend stand in for host boundaries — the collective paths exercised
-(psum_scatter / all_gather / psum across processes) are the same XLA
-collectives that ride ICI/DCN on a pod.
+MPI/NCCL/sockets); BASELINE.json requires N>=2 hosts.  Process
+boundaries on the CPU backend stand in for host boundaries — the
+collective paths exercised (psum_scatter / all_gather / psum across
+processes) are the same XLA collectives a multi-host run uses.
 """
 
 import os

@@ -203,3 +203,30 @@ def test_memmap_reads_equal(tmp_path):
     np.testing.assert_array_equal(np.asarray(b.data), a.data)
     np.testing.assert_array_equal(b.lengths, a.lengths)
     assert b.n_pairs == a.n_pairs and b.max_len == a.max_len
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom_cache"],
+                         ids=["unset", "env"])
+def test_compile_cache_location(tmp_path, env_dir):
+    """The compile cache goes where JAX_COMPILATION_CACHE_DIR says, else to
+    <checkout>/.jax_cache; the package sets it nowhere else."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = root
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / env_dir)
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import aligngraph_tpu, jax; "
+         "print(jax.config.jax_compilation_cache_dir)"],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=300, check=True)
+    want = (os.path.join(root, ".jax_cache") if env_dir is None
+            else str(tmp_path / env_dir))
+    assert out.stdout.strip().splitlines()[-1] == want

@@ -5,7 +5,7 @@ its bowtie2 / pblat subprocess calls to our in-engine aligners
 (scripts/shims/*, compat/*_cli.py), then runs our pipeline on the same
 inputs and compares outputs.  Because both sides consume byte-identical
 alignments, any diff isolates the graph / extension / refinement core
-(C16-C24), the round-1 VERDICT's #2 ask.
+(C16-C24).
 
 Compared artifacts:
   - tmp/_initial_contigs.0.fa      (contig-layer build, C17)
